@@ -1,4 +1,4 @@
-"""shimmer-tpu: a TPU-native differentiable spectral path tracer.
+"""shimmer-tpu: a differentiable spectral path tracer on JAX.
 
 Ground-up JAX/XLA/Pallas reimplementation of the capabilities of
 jalberse/shimmer (a Rust, CPU-only pbrt-v4-style renderer).  See SURVEY.md

@@ -5,8 +5,7 @@ object holding jnp transforms; ``generate_ray`` / ``generate_ray_differential``
 are device functions batched over film samples.  Rays are produced directly
 in *render space* (the reference's CameraTransform scheme: render space
 defaults to camera-world, camera.rs:490-560, keeping coordinates small near
-the camera for f32 precision — doubly important on TPU where f64 is
-emulated).
+the camera for f32 precision — the device computes in float32).
 
 Spherical cameras close a gap listed in SURVEY.md §2.1 (absent from the
 reference); semantics follow pbrt-v4.

@@ -14,8 +14,10 @@ import time
 
 
 def main(argv=None):
+    from shimmer_tpu.render import DEFAULT_PIXEL_BLOCK
+
     ap = argparse.ArgumentParser(
-        prog="shimmer-tpu", description="TPU-native spectral path tracer"
+        prog="shimmer-tpu", description="Differentiable spectral path tracer"
     )
     ap.add_argument("scene", help="pbrt-v4 scene file")
     ap.add_argument("--outfile", "-o", default=None, help="output image (.pfm/.png/.exr)")
@@ -23,7 +25,7 @@ def main(argv=None):
     ap.add_argument("--maxdepth", type=int, default=None)
     ap.add_argument("--integrator", default=None, choices=["path", "simplepath", "randomwalk"])
     ap.add_argument("--wave-spp", type=int, default=4)
-    ap.add_argument("--pixel-block", type=int, default=1 << 15)
+    ap.add_argument("--pixel-block", type=int, default=DEFAULT_PIXEL_BLOCK)
     ap.add_argument("--shard", action="store_true", help="shard across all local devices")
     ap.add_argument(
         "--megakernel", action="store_true",
@@ -48,7 +50,9 @@ def main(argv=None):
     from shimmer_tpu.film.image import Image
     from shimmer_tpu.loading.parser import parse_file
     from shimmer_tpu.loading.scene_builder import SceneBuilder
+    from shimmer_tpu.utils.compile_cache import enable_compile_cache
 
+    enable_compile_cache()
     t0 = time.time()
     builder = SceneBuilder(search_dir=Path(args.scene).parent)
     parse_file(args.scene, builder)

@@ -1,8 +1,8 @@
 """Global numeric configuration.
 
 The reference selects f32/f64 at compile time (``Float`` alias,
-/root/reference/src/float.rs:2-4).  On TPU the compute dtype is float32 (the
-VPU/MXU native type); film accumulation can optionally be float64 on CPU for
+/root/reference/src/float.rs:2-4).  On the device the compute dtype is
+float32; film accumulation can optionally be float64 on CPU for
 bit-fidelity tests.
 """
 

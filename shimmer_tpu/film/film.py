@@ -8,12 +8,13 @@ reference's unsafe disjoint-tile writes, integrator.rs:277-295, become XLA
 scatters — disjointness is no longer a safety condition).
 
 Accumulators are float32 by default (the reference uses f64 sums,
-film.rs:470-479; on TPU f64 is emulated and the wave structure keeps per-add
-magnitudes bounded, so f32 + final normalization holds to ~1e-6 for 1k spp).
+film.rs:470-479; the wave structure keeps per-add magnitudes bounded, so
+f32 + final normalization holds to ~1e-6 for 1k spp).
 """
 
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 
@@ -214,13 +215,13 @@ class RgbFilm:
         pixel_xy: (..., 2) int pixel coords; L: (..., 4); weight: (...,)
         filter weight from camera-sample importance sampling.  With filter
         importance sampling each sample lands on exactly one pixel, so this
-        is a pure scatter-add — the TPU replacement for the reference's
+        is a pure scatter-add — the replacement for the reference's
         per-tile unsafe film writes.
 
         unique: caller guarantees every lane targets a DISTINCT pixel
         (one sample per block pixel; padded lanes must be routed out of
-        bounds).  TPU scatter then skips the duplicate-index
-        serialization — a large win at wave lane counts.
+        bounds), so the scatter needs no handling of duplicate indices
+        and its result does not depend on the order of the adds.
         """
         rgb = self._clamped_rgb(L, swl) * weight[..., None]
         px = pixel_xy[..., 0].reshape(-1)
@@ -278,7 +279,10 @@ class RgbFilm:
         rgb = safe_div(state.rgb_sum, state.weight_sum[..., None])
         rgb = rgb + splat_scale * state.rgb_splat / self.filter_integral
         m = jnp.asarray(self.output_rgb_from_sensor_rgb, jnp.float32)
-        return jnp.einsum("ij,hwj->hwi", m, rgb.astype(jnp.float32))
+        return jnp.einsum(
+            "ij,hwj->hwi", m, rgb.astype(jnp.float32),
+            precision=jax.lax.Precision.HIGHEST,
+        )
 
     def merge(self, a: FilmState, b: FilmState) -> FilmState:
         """Combine accumulators from two waves/shards (checkpoint/psum path)."""

@@ -18,6 +18,35 @@ import numpy as np
 from shimmer_tpu.color.color import ColorEncoding, LINEAR, SRGB
 
 
+def _optional_import(module: str, fmt: str):
+    """Import an optional I/O dependency; PFM needs none of them."""
+    import importlib
+
+    try:
+        return importlib.import_module(module)
+    except ImportError as e:
+        raise ImportError(
+            f"{fmt} images need the '{module.split('.')[0]}' package, which "
+            "is not installed; use .pfm instead"
+        ) from e
+
+
+# Golden-image tolerance: renders are deterministic up to floating-point
+# reordering (another device, another fusion), which moves a few pixels.
+GOLDEN_MEAN_REL = 0.01
+GOLDEN_P99_REL = 0.05
+
+
+def relative_drift(img, ref) -> tuple[float, float]:
+    """(mean, 99th percentile) of |img - ref| relative to mean |ref|: the
+    measure the golden-image checks hold renders to."""
+    img = np.asarray(img, np.float32)
+    ref = np.asarray(ref, np.float32)
+    scale = max(float(np.abs(ref).mean()), 1e-6)
+    diff = np.abs(img - ref)
+    return float(diff.mean() / scale), float(np.quantile(diff, 0.99) / scale)
+
+
 class WrapMode(enum.Enum):
     """src/image.rs:73-97."""
 
@@ -60,9 +89,7 @@ class Image:
         if suffix == ".pfm":
             return Image(_read_pfm(path))
         if suffix in (".png", ".jpg", ".jpeg", ".tga", ".bmp", ".webp"):
-            from PIL import Image as PILImage
-
-            img = PILImage.open(path)
+            img = _optional_import("PIL.Image", suffix).open(path)
             arr = np.asarray(img)
             if arr.dtype == np.uint8:
                 arr = arr.astype(np.float32) / 255.0
@@ -80,8 +107,7 @@ class Image:
                 arr = encoding.to_linear(arr)
             return Image(arr)
         if suffix == ".exr":
-            import imageio.v3 as iio
-
+            iio = _optional_import("imageio.v3", suffix)
             return Image(np.asarray(iio.imread(path), np.float32))
         raise ValueError(f"unsupported image format: {suffix}")
 
@@ -93,16 +119,14 @@ class Image:
         if suffix == ".pfm":
             _write_pfm(path, self.data)
         elif suffix == ".png":
-            from PIL import Image as PILImage
-
+            pil_image = _optional_import("PIL.Image", suffix)
             arr = self.data[..., :3] if self.n_channels >= 3 else self.data[..., 0]
             enc = np.clip(SRGB.from_linear(np.asarray(arr, np.float64)), 0, 1)
-            PILImage.fromarray(
+            pil_image.fromarray(
                 (enc * 255.0 + 0.5).astype(np.uint8)
             ).save(path)
         elif suffix == ".exr":
-            import imageio.v3 as iio
-
+            iio = _optional_import("imageio.v3", suffix)
             iio.imwrite(path, self.data.astype(np.float32))
         else:
             raise ValueError(f"unsupported image format: {suffix}")

@@ -412,9 +412,9 @@ def li_path(
     lanes excluded from both tracing results and ray statistics).
 
     Per bounce the extension rays AND the NEE shadow rays go through ONE
-    merged 2N-lane traversal (want_any flags) — sequential traversal
-    dispatches are the dominant TPU cost, and shadow lanes terminate at
-    their first hit so they rarely extend the lock-step walk.
+    merged 2N-lane traversal (want_any flags) — one traversal dispatch
+    per bounce instead of two, and shadow lanes terminate at their first
+    hit so they rarely extend the walk.
     """
     n = ray.o.shape[:-1]
     flat = n[0] if n else 1

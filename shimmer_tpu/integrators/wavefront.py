@@ -1,15 +1,13 @@
-"""Wavefront path tracer with ray regeneration — the production TPU
-render loop.
+"""Wavefront path tracer with ray regeneration — the production render
+loop.
 
 The reference plans but never implements a wavefront integrator
 (/root/reference/src/main.rs:152-155 ``--wavefront`` todo!,
 src/material.rs:1354-1360); SURVEY.md §7 names it the core architecture.
-This module is that design, shaped by the measured TPU cost model: the
-dominant cost is the *sequential dependent row gather* inside BVH
-traversal, paid by every lane whether alive or dead.  A masked megakernel
-(integrators/path.py::li_path) runs ``spp x (max_depth+1)`` full-width
-traversals even though the average path dies after ~1-2 bounces —
-occupancy ~10-20%.
+This module is that design.  BVH traversal is the hot path, and a masked
+megakernel (integrators/path.py::li_path) runs ``spp x (max_depth+1)``
+full-width traversals even though the average path dies after ~1-2
+bounces — most of its lanes are dead.
 
 Here a fixed pool of N lanes is kept full: each outer iteration
 
@@ -95,10 +93,10 @@ class _WaveState:
     sh_med: jnp.ndarray      # (N,) int32 — medium at the shadow origin
     # pool + per-item output + stats.  Finished paths scatter-SET their
     # converted rgb into out_rgb[item] — each pool item retires exactly
-    # once, so the scatter has unique indices and no read-modify-write
-    # (TPU scatter-ADD serializes on potential duplicates; this was the
-    # dominant per-iteration cost).  The film sees ONE dense reduction +
-    # one n-lane scatter-add per wave (see render_wave_wavefront tail).
+    # once, so the scatter has unique indices and no read-modify-write,
+    # and its result does not depend on the order of the writes.  The film
+    # sees ONE dense reduction + one n-lane scatter-add per wave (see
+    # render_wave_wavefront tail).
     pool_next: jnp.ndarray   # () int32
     out_rgb: jnp.ndarray     # (pool, 3) f32
     out_w: jnp.ndarray       # (pool,) f32
@@ -141,10 +139,18 @@ def render_wave_wavefront(
         jnp.ones(n, bool) if pixel_valid is None else jnp.asarray(pixel_valid)
     )
 
-    def regen(st: _WaveState) -> _WaveState:
+    def regen(st: _WaveState, all_free: bool = False) -> _WaveState:
         free = ~st.busy
         navail = pool_total - st.pool_next
-        rank = jnp.cumsum(free.astype(jnp.int32)) - 1
+        if all_free:
+            # The first fill: every lane is free, so the prefix sum is the
+            # lane index.  Spelling it out keeps a constant cumsum out of
+            # the program, which XLA's SPMD pipeline would constant-fold
+            # as an O(n^2) reduce-window (a compile that never ends at
+            # 230,400 lanes per device).
+            rank = jnp.arange(n, dtype=jnp.int32)
+        else:
+            rank = jnp.cumsum(free.astype(jnp.int32)) - 1
         take = free & (rank < navail)
         item = jnp.clip(st.pool_next + rank, 0, pool_total - 1)
         p_idx = item % n
@@ -521,7 +527,7 @@ def render_wave_wavefront(
         rays=jnp.zeros((), jnp.float32),
         iters=jnp.zeros((), jnp.float32),
     )
-    st0 = regen(st0)
+    st0 = regen(st0, all_free=True)
     st = jax.lax.while_loop(cond, body, st0)
     # One dense per-pixel reduction over the sample axis, then a single
     # n-lane scatter-add into the film shard (item = s_idx * n + p_idx).

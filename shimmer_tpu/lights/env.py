@@ -12,6 +12,7 @@ the hot path).
 
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 
@@ -152,7 +153,8 @@ def build_env_light(
 
 def _dir_to_uv(env: EnvLightData, d_render):
     d = jnp.einsum(
-        "ij,...j->...i", env.light_from_render[:3, :3], d_render
+        "ij,...j->...i", env.light_from_render[:3, :3], d_render,
+        precision=jax.lax.Precision.HIGHEST,
     )
     return equal_area_sphere_to_square(normalize(d))
 
@@ -179,7 +181,10 @@ def env_sample_li(env: EnvLightData, ref_p, u, swl, allow_incomplete_pdf=False):
     dist = env.compensated if allow_incomplete_pdf else env.distribution
     uv, map_pdf = dist.sample(u)
     d_light = equal_area_square_to_sphere(uv)
-    wi = jnp.einsum("ij,...j->...i", env.render_from_light[:3, :3], d_light)
+    wi = jnp.einsum(
+        "ij,...j->...i", env.render_from_light[:3, :3], d_light,
+        precision=jax.lax.Precision.HIGHEST,
+    )
     pdf = map_pdf / (4.0 * jnp.pi)
     h, w = env.texel_scale.shape
     x = jnp.clip((uv[..., 0] * w).astype(jnp.int32), 0, w - 1)

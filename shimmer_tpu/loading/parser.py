@@ -7,7 +7,7 @@ parser), parser_target.rs (the 40-directive interface) and scene.rs
 SceneBuilder; ``SceneBuilder.create()`` runs the creation passes and
 returns the device Scene + camera + film + sampler + render settings.
 
-Differences from the reference are deliberate TPU-first choices:
+Differences from the reference are deliberate, for batched device code:
 object instances are flattened into the single global BVH (a two-level
 BVH is a later optimization), and all spectra/textures bake to flat device
 tables at create() time.

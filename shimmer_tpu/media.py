@@ -2,7 +2,7 @@
 
 The reference's ``Medium`` is an empty stub (/root/reference/src/media.rs:3-5);
 this implements the pbrt-v4 homogeneous-medium semantics the scene format
-implies, TPU-shaped: per-lane masked closed-form distance sampling inside
+implies, shaped for batched lanes: per-lane masked closed-form distance sampling inside
 the existing batched path loop (no delta/ratio tracking needed for
 homogeneous media), hero-wavelength spectral sigma with channel-0 distance
 sampling, Henyey-Greenstein phase (materials/scattering.py), NEE from

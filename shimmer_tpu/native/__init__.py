@@ -2,16 +2,21 @@
 
 The compute path is JAX/XLA; these are the host-side pieces the reference
 implements natively (BVH build, aggregate.rs) where tree quality directly
-sets device traversal cost.  Compiled on first use with g++ into a cached
-shared object (no pybind11 in this image; plain C ABI + ctypes).
+sets device traversal cost.  Compiled on first use with g++ into a shared
+object (plain C ABI + ctypes) whose file name carries a hash of the
+source, so a copied checkout never loads a library built from other
+source.  It is built for the generic x86-64/aarch64 target, not for the
+building machine's CPU, so it also runs on any other host.
 """
 
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
 import subprocess
 import threading
+import warnings
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
 _LOCK = threading.Lock()
@@ -19,27 +24,45 @@ _LIB = None
 _LIB_ERR = None
 
 
+_SRC = os.path.join(_DIR, "sah.cpp")
+
+
+def library_path(source: bytes) -> str:
+    """Shared-object path for the given ``sah.cpp`` contents: the build
+    is keyed on the source's hash, not on file times."""
+    key = hashlib.sha256(source).hexdigest()[:16]
+    return os.path.join(_DIR, f"_sah-{key}.so")
+
+
 def _compile_and_load():
     global _LIB, _LIB_ERR
     with _LOCK:
         if _LIB is not None or _LIB_ERR is not None:
             return _LIB
-        src = os.path.join(_DIR, "sah.cpp")
-        so = os.path.join(_DIR, "_sah.so")
         try:
-            if not os.path.exists(so) or os.path.getmtime(so) < os.path.getmtime(src):
+            with open(_SRC, "rb") as f:
+                so = library_path(f.read())
+            if not os.path.exists(so):
+                tmp = f"{so}.{os.getpid()}.tmp"
                 subprocess.run(
                     [
-                        "g++", "-O3", "-march=native", "-shared", "-fPIC",
-                        "-std=c++17", src, "-o", so,
+                        "g++", "-O3", "-shared", "-fPIC", "-std=c++17",
+                        _SRC, "-o", tmp,
                     ],
                     check=True,
                     capture_output=True,
                 )
+                os.replace(tmp, so)
             _LIB = ctypes.CDLL(so)
             _LIB.build_sah_bvh.restype = ctypes.c_int64
         except Exception as e:  # pragma: no cover - depends on toolchain
             _LIB_ERR = e
+            warnings.warn(
+                f"native SAH builder unavailable ({e!r}); BVHs are built "
+                "with the slower LBVH fallback",
+                RuntimeWarning,
+                stacklevel=3,
+            )
         return _LIB
 
 

@@ -1,11 +1,11 @@
 // Binned-SAH BVH builder (native).
 //
-// TPU-native framework analog of the reference's BVH build
+// Analog of the reference's BVH build
 // (/root/reference/src/aggregate.rs:207-419 — which only implements
 // Middle/EqualCounts splits; SAH is its TODO at aggregate.rs:52).  The
 // Python side (shimmer_tpu/ops/bvh8.py) collapses this binary hierarchy
 // 8-wide and packs device rows; this builder exists because tree QUALITY
-// sets the number of sequential row gathers per ray — the dominant TPU
+// sets the number of sequential row gathers per ray — the dominant
 // traversal cost — and binned SAH visits ~1.5-2x fewer nodes than the
 // Morton-split LBVH fallback.
 //

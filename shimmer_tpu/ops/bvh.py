@@ -5,7 +5,7 @@ builds a pointer tree recursively (Middle/EqualCounts splits,
 aggregate.rs:304-419) and flattens it for an iterative *stack* traversal
 (depth-64 stack, :71-139).  A per-lane stack is hostile to a vector
 machine, and lock-step SIMD traversal pays for the worst lane, so tree
-*quality* matters more than on a CPU.  The TPU design:
+*quality* matters more than on a CPU.  The design:
 
 * **Build**: LBVH with Karras-2012 radix splits over 60-bit Morton keys —
   every internal node splits its primitive range at the highest differing
@@ -17,9 +17,8 @@ machine, and lock-step SIMD traversal pays for the worst lane, so tree
 * **Layout**: nodes in *preorder* with a ``skip`` link (threaded BVH):
   traversal state is one int per lane — ``next = hit ? node+1 : skip`` —
   uniform control flow across lanes.
-* **Fat packing** (``pack_fat_bvh``): the measured cost of an XLA row
-  gather on TPU v5e is ~5 ns/row *independent of row width up to 128
-  floats*, so each traversal step should fetch one 512-byte row that
+* **Fat packing** (``pack_fat_bvh``): every traversal step is one
+  dependent row gather, so each step should fetch one 512-byte row that
   resolves as much work as possible.  Internal rows carry BOTH child
   boxes (so only nodes whose box hit are ever visited); leaf rows carry
   up to 8 triangles inline (vertices + ids), making leaf processing

@@ -1,11 +1,8 @@
-"""8-wide BVH ("BVH8") build + packed-row layout for TPU traversal.
+"""8-wide BVH ("BVH8") build + packed-row layout for traversal.
 
-TPU-native redesign of the reference's binary BVH traversal
-(/root/reference/src/aggregate.rs:71-139).  On a TPU the dominant
-traversal cost is the *sequential dependent row gather* (one per node
-visit, measured 0.4-1.9 ms/step at 131k lanes in round 2's
-experiments/honest_bench.py) — per-step cost is nearly independent of the
-row width up to 128 f32.  So the design goal is the minimum number of
+Wide redesign of the reference's binary BVH traversal
+(/root/reference/src/aggregate.rs:71-139).  Every node visit is one
+dependent row fetch, so the design goal is the minimum number of
 sequential steps per ray, which an 8-wide tree with 8-triangle leaf rows
 achieves: ~log8 levels, one 512-byte row per visit resolving either 8
 child boxes or 8 inline triangles.
@@ -16,52 +13,35 @@ Layout (one (128,) f32 row per node, two kinds):
   ``[lox*8 | loy*8 | loz*8 | hix*8 | hiy*8 | hiz*8]``; col 48 =
   ``child_base``; col 80 = 0; cols 88:96 = per-slot valid flags (1.0 for
   occupied slots — empty slots hold zero boxes and MUST be masked by the
-  flag; the rows are kept free of inf/NaN because the Pallas packet
-  kernel routes them through an MXU transpose, where non-finite values
-  would poison the product).  A node's children occupy *contiguous* rows
-  ``child_base + j`` for slot j — this is what makes the traversal's
-  bitmask state work without re-gathering the parent.
+  flag, so the table holds no inf/NaN).  A node's children occupy
+  *contiguous* rows ``child_base + j`` for slot j — this is what makes the
+  traversal's bitmask state work without re-gathering the parent.
 * **leaf row**: cols 0:72 = up to 8 inline triangles SoA-in-row
   ``[p0x*8 | p0y*8 | p0z*8 | p1x*8 | ... | p2z*8]``; cols 72:80 = the 8
   BVH-sorted triangle ids; col 80 = triangle count in 1..8.
-
-A parallel ``meta`` int32 array (one per row) packs
-``leaf_count | child_base << 4`` for scalar-unit consumption by the
-Pallas kernel (ops/pallas/traverse.py).
 
 All indices/counts are stored as exact small floats (< 2^24): no bit
 casts, so NaN canonicalization or denormal flushing cannot corrupt
 topology (advisor finding r1).
 
-Traversal (shapes/triangle.py::_traverse8) carries one int32 "group" per
-lane — ``child_base * 256 + pending_hit_mask`` — plus a short explicit
-stack of groups.  Each step pops the lowest pending bit, gathers that one
-row, and either slab-tests 8 children (internal) or intersects 8
-triangles (leaf).  Max one stack push per visit.
+Traversal (shapes/triangle.py::_traverse, ops/traverse_gpu.py) carries one
+int32 "group" per lane — ``child_base * 256 + pending_hit_mask`` — plus a
+short explicit stack of groups.  Each step pops the lowest pending bit,
+gathers that one row, and either slab-tests 8 children (internal) or
+intersects 8 triangles (leaf).
 
-Build: binary LBVH hierarchy (ops/bvh.py, Karras 2012) collapsed 8-wide
-by repeatedly expanding the child with the largest triangle range —
-standard BVH2→BVH8 collapse.
+Build: binary hierarchy (native binned SAH, or ops/bvh.py's LBVH, Karras
+2012) collapsed 8-wide by repeatedly expanding the child with the largest
+triangle range — standard BVH2→BVH8 collapse.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import os
 
 import numpy as np
 
 from shimmer_tpu.ops.bvh import binary_hierarchy
-
-# Leaf-test formulation for the Pallas packet kernel (read once at import
-# so packer and kernel always agree).  "1" packs leaf rows as
-# (p0, e1=p1-p0, e2=p2-p0) and the kernel runs Moller-Trumbore with the
-# precomputed edges — ~30 fewer vector ops per unified chain-step than
-# the watertight translate+permute+shear body (which needs 18 per-lane
-# selects for the dominant-axis permutation alone).  Default OFF: MT
-# with per-triangle rounded edges loses pbrt's shared-edge watertight
-# guarantee (triangle.rs:173-302), so it is an opt-in measured variant.
-LEAF_MT = os.environ.get("SHIMMER_LEAF_MT", "0") == "1"
 
 W8 = 128          # row width (f32)
 MAX_LEAF8 = 8     # max triangles per leaf row
@@ -75,7 +55,6 @@ MAX_GROUP_BASE = (1 << 23) - 1  # group packs base*256+mask into int32
 @dataclasses.dataclass
 class BVH8Arrays:
     rows: np.ndarray       # (R, 128) f32 packed node/leaf rows
-    meta: np.ndarray       # (R,) int32 leaf_count | child_base << 4
     perm: np.ndarray       # (T,) int32 Morton-sorted triangle order
     n_rows: int
     max_depth: int         # max stack depth needed by the traversal
@@ -163,8 +142,6 @@ def _layout8(h, children, wide_binary):
     # (internal-node rows and leaf rows interleaved by slot) contiguous.
     row_of_wide = np.full(n_wide, -1, np.int64)
     row_of_wide[0] = 0
-    rows_meta = {}   # row -> ("node", wide_id) | ("leaf", first, count)
-    rows_meta[0] = ("node", 0) if children[0] is not None else None
     next_row = 1
     depth_of = np.zeros(n_wide, np.int64)
     order = [0]
@@ -189,10 +166,8 @@ def _layout8(h, children, wide_binary):
     assert n_rows <= MAX_GROUP_BASE, "scene too large for packed int32 groups"
 
     # All rows finite (zeros): empty internal slots are zero boxes gated
-    # by the valid flag — the Pallas kernel's MXU fetch cannot tolerate
-    # inf/NaN anywhere in the table.
+    # by the valid flag.
     rows = np.zeros((n_rows, W8), np.float32)
-    meta = np.zeros(n_rows, np.int32)
 
     # Internal rows: child boxes + base + slot-valid flags.
     for wid in order:
@@ -200,7 +175,6 @@ def _layout8(h, children, wide_binary):
         slots = children[wid]
         rows[r, _COL_BASE] = float(child_base[wid])
         rows[r, _COL_COUNT] = 0.0
-        meta[r] = int(child_base[wid]) << 4
         for j, (kind, a, cnt, s) in enumerate(slots):
             l3 = blo[s]
             h3 = bhi[s]
@@ -213,7 +187,6 @@ def _layout8(h, children, wide_binary):
             rows[r, _COL_VALID + j] = 1.0
     return BVH8Arrays(
         rows=rows,
-        meta=meta,
         perm=h["order"],
         n_rows=n_rows,
         max_depth=int(depth_of.max()) + 2,
@@ -235,7 +208,6 @@ def pack_bvh8(lo, hi, tri_p, builder: str = "auto") -> BVH8Arrays:
         lr = np.asarray([(r, f, c) for (r, f, c, _s) in leaf_rows], np.int64)
         r_ids, firsts, counts = lr[:, 0], lr[:, 1], lr[:, 2]
         rows[r_ids, _COL_COUNT] = counts.astype(np.float32)
-        arrs.meta[r_ids] = counts.astype(np.int32)
         for k in range(MAX_LEAF8):
             m = counts > k
             if not m.any():
@@ -257,67 +229,7 @@ def pack_bvh8(lo, hi, tri_p, builder: str = "auto") -> BVH8Arrays:
             for c in range(9):
                 rows[rr, c * 8 + k] = rows[rr, c * 8]
     return BVH8Arrays(
-        rows=rows, meta=arrs.meta, perm=perm, n_rows=arrs.n_rows,
-        max_depth=arrs.max_depth,
-    )
-
-
-def pack_tiles8(rows: np.ndarray, meta: np.ndarray) -> np.ndarray:
-    """Repack node rows into sublane orientation for the Pallas kernel:
-    8 nodes per (8, 128) f32 tile, node r at lanes ``16*(r&7) + c`` of
-    tile ``r >> 3``, slot j on sublane j.  Fields c:
-
-    * internal: c0..c5 = lox loy loz hix hiy hiz, c6 = slot-valid flag,
-      c11 = 8-bit child-leaf mask (bit j set when child row base+j is a
-      leaf) — lets the dual-stack kernel split pushes into an ordered
-      internal stack and a leaf backlog without touching child metas
-    * leaf:     c0..c8 = p0x..p2z, c9 = BVH-sorted triangle id
-    * both:     c10 = the row's meta word (leaf_count | child_base << 4)
-      as an exact small float — HBM-streamed tiles carry their own meta
-      so non-resident rows need no SMEM meta entry.
-
-    This layout makes the per-visit fetch a tile-aligned VMEM load plus
-    a dynamic lane roll — no MXU transpose, no precision split
-    (ops/pallas/traverse.py::_fetch_tile).
-    """
-    n_rows = rows.shape[0]
-    rr = rows.reshape(n_rows, 16, 8)             # [r, colgroup, slot]
-    fields = np.ascontiguousarray(
-        rr[:, 0:16, :].transpose(0, 2, 1)
-    )                                            # [r, slot, c] = rr[r,c,j]
-    is_int = (meta & 15) == 0
-    fields[is_int, :, 6] = rr[is_int, 11, :]     # valid flags (cols 88:96)
-    fields[:, :, 10:] = 0.0
-    assert int(meta.max(initial=0)) < (1 << 24), "meta must stay exact in f32"
-    fields[:, :, 10] = meta.astype(np.float32)[:, None]
-    # c11: child-leaf mask for internal rows (exact small float <= 255).
-    child_base = (meta >> 4).astype(np.int64)
-    child_rows = np.clip(
-        child_base[:, None] + np.arange(8)[None, :], 0, n_rows - 1
-    )
-    child_is_leaf = (meta[child_rows] & 15) > 0          # (R, 8)
-    leaf_mask = (
-        child_is_leaf.astype(np.int64) << np.arange(8)[None, :]
-    ).sum(axis=1).astype(np.float32)
-    fields[is_int, :, 11] = leaf_mask[is_int, None]
-    if LEAF_MT:
-        # Leaf rows carry (p0, e1, e2) instead of (p0, p1, p2): the
-        # kernel's MT leaf test needs the edge vectors, and precomputing
-        # them here removes 6 per-step subtracts AND the whole
-        # dominant-axis permutation from the hot loop.
-        leaf = ~is_int
-        fields[leaf, :, 3:6] -= fields[leaf, :, 0:3]
-        fields[leaf, :, 6:9] -= fields[leaf, :, 0:3]
-    r8 = -(-n_rows // 8)
-    pad = r8 * 8 - n_rows
-    if pad:
-        fields = np.concatenate(
-            [fields, np.zeros((pad, 8, 16), np.float32)], axis=0
-        )
-    return np.ascontiguousarray(
-        fields.reshape(r8, 8, 8, 16).transpose(0, 2, 1, 3).reshape(
-            r8, 8, 128
-        )
+        rows=rows, perm=perm, n_rows=arrs.n_rows, max_depth=arrs.max_depth,
     )
 
 

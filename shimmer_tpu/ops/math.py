@@ -81,8 +81,9 @@ def difference_of_products(a, b, c, d):
     """a*b - c*d with an FMA-style error correction term.
 
     Reference: src/math.rs difference_of_products — keeps cross products and
-    determinants robust near cancellation.  On TPU, XLA emits fused ops; the
-    two-product compensation still reduces cancellation error in f32.
+    determinants robust near cancellation.  Where the compiler contracts
+    ``-c * d + cd`` into an FMA the correction term is exact; without
+    contraction it is zero and the result is the plain difference.
     """
     cd = c * d
     diff = jnp.float32(a * b - cd)
@@ -221,10 +222,8 @@ def log_i0(x):
 
 def small_gather(table, idx, limit: int = 32):
     """``table[idx]`` for tables with a tiny leading dim, without a
-    per-lane gather: TPU per-lane gathers carry a large fixed cost even
-    for a 24-entry table (~6 ms at 65k lanes, r4 on-chip micro); a
-    broadcast one-hot contraction is a single fused VPU pass.  Falls
-    back to real indexing for larger tables."""
+    per-lane gather: a broadcast one-hot contraction fuses into one
+    elementwise pass.  Falls back to real indexing for larger tables."""
     import jax.numpy as jnp
 
     k = table.shape[0]

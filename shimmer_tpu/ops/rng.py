@@ -3,7 +3,7 @@
 The reference threads a stateful ``SmallRng`` through the render and admits a
 determinism hole (start_pixel_sample is a no-op — /root/reference/
 src/sampler.rs:117-121; LayeredBxDF draws from an unseeded RNG —
-src/bxdf.rs:1011).  The TPU build instead derives every random number from a
+src/bxdf.rs:1011).  This renderer instead derives every random number from a
 pure hash of ``(pixel, sample_index, depth, dimension, seed)``:
 
 * fully deterministic and order-independent — required for path-replay

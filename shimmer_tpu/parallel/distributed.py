@@ -1,19 +1,16 @@
 """Multi-host distribution: jax.distributed init + cross-host film path.
 
 The reference is single-process (SURVEY.md §2 parallelism table: rayon
-threads, no networking).  The TPU-native scaling story (BASELINE.json
-north star: >= 85% efficiency at 2 hosts) is:
+threads, no networking).  Across hosts:
 
-* one JAX process per host, connected with ``jax.distributed.initialize``
-  (ICI inside a slice, DCN across hosts);
+* one JAX process per host, connected with ``jax.distributed.initialize``;
 * the film's pixel rows sharded over the GLOBAL device mesh with the
   existing tile renderer (parallel/render.py) — rays are independent, so
   a wave needs NO cross-host traffic;
 * the only collectives are the film resolve (all-gather of row bands)
-  and, in training, the gradient psum — both ride the mesh axis and
-  cross DCN only at host boundaries.
+  and, in training, the gradient psum — both ride the mesh axis.
 
-Verified without a TPU pod by the 2-process CPU dry run
+Verified without a cluster by the 2-process CPU dry run
 (``python experiments/dryrun_multihost.py``), the standard JAX substitute
 prescribed in SURVEY.md §4: each process exposes
 ``xla_force_host_platform_device_count`` fake devices and the global mesh
@@ -34,10 +31,9 @@ def initialize_distributed(
 ):
     """Connect this process to the multi-host job.
 
-    Arguments default to the standard env vars
-    (SHIMMER_COORDINATOR / SHIMMER_NUM_PROCESSES / SHIMMER_PROCESS_ID),
-    falling back to jax.distributed's own auto-detection (TPU pod
-    metadata) when unset.  Idempotent.
+    Arguments default to the env vars SHIMMER_COORDINATOR /
+    SHIMMER_NUM_PROCESSES / SHIMMER_PROCESS_ID.  With none of them given,
+    nothing is initialised (a single-process run).  Idempotent.
     """
     import jax
     from jax._src.distributed import global_state
@@ -59,7 +55,7 @@ def initialize_distributed(
     )
     if pid is not None:
         kw["process_id"] = int(pid)
-    if kw or os.environ.get("TPU_WORKER_HOSTNAMES"):
+    if kw:
         jax.distributed.initialize(**kw)
 
 
@@ -84,9 +80,9 @@ def render_multihost(
     """Row-band-sharded render over the global (multi-host) mesh.
 
     Every process calls this with the SAME scene (replicated — a
-    multi-M-triangle BVH fits per-chip HBM, SURVEY.md §7 hard-part 7).
-    Returns the full resolved image, identical on every process
-    (gathered with process_allgather over DCN).
+    multi-M-triangle BVH fits one device's memory, SURVEY.md §7
+    hard-part 7).  Returns the full resolved image, identical on every
+    process (gathered with process_allgather).
     """
     import jax
     import jax.numpy as jnp

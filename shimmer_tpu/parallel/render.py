@@ -1,23 +1,24 @@
-"""Multi-chip rendering: tile/spp sharding over a device mesh.
+"""Multi-device rendering: tile/spp sharding over a device mesh.
 
-TPU-native replacement for the reference's rayon tile parallelism
+Replacement for the reference's rayon tile parallelism
 (/root/reference/src/integrator.rs:235-304) and the distributed layer the
 reference lacks (SURVEY.md §2 parallelism table): pixel *rows* are sharded
-across chips with ``shard_map`` over a ("tiles",) mesh — each chip owns a
-contiguous row band of the film, renders only its pixels, and scatter-adds
-into its film shard.  No collectives run inside a wave (rays are
+across devices with ``shard_map`` over a ("tiles",) mesh — each device owns
+a contiguous row band of the film, renders only its pixels, and
+scatter-adds into its film shard.  No collectives run inside a wave (rays are
 independent); the only communication is the implicit all-gather when the
 sharded film is resolved to an image — the analog of the reference's
 lock-free disjoint-tile writes, made safe by construction.
 
-spp sharding (``axis='spp'``) instead gives every chip the full image with
-a sample-index offset and psums film states at wave end — the cross-host
-reduction path in BASELINE.json's north star.
+spp sharding (``axis='spp'``) instead gives every device the full image
+with a sample-index offset and psums film states at wave end.
+
+The scene is a replicated ARGUMENT of the sharded program, not a closure
+constant, so its tables (a 39 MB node table for the 327k-triangle bench
+scene) stay device buffers instead of being embedded in the program.
 """
 
 from __future__ import annotations
-
-import functools
 
 import jax
 import jax.numpy as jnp
@@ -25,12 +26,31 @@ import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from shimmer_tpu.film.film import FilmState, RgbFilm
-from shimmer_tpu.render import INTEGRATORS, render_pixel_samples
+from shimmer_tpu.render import (
+    INTEGRATORS,
+    make_replay_wavefront_renderer,
+    render_pixel_samples,
+)
 
 
 def make_tile_mesh(devices=None, axis: str = "tiles") -> Mesh:
     devices = devices if devices is not None else jax.devices()
     return Mesh(np.asarray(devices), (axis,))
+
+
+def _band_pixels(axis: str, rows_per: int, w: int):
+    """Global pixel coords of this device's row band."""
+    band = jax.lax.axis_index(axis) * rows_per
+    ys, xs = jnp.meshgrid(
+        jnp.arange(rows_per, dtype=jnp.int32),
+        jnp.arange(w, dtype=jnp.int32),
+        indexing="ij",
+    )
+    return jnp.stack([xs.reshape(-1), (ys + band).reshape(-1)], axis=-1)
+
+
+def _band_spec(axis: str) -> FilmState:
+    return FilmState(rgb_sum=P(axis), weight_sum=P(axis), rgb_splat=P(axis))
 
 
 def make_sharded_wave_renderer(
@@ -69,7 +89,7 @@ def make_sharded_wave_renderer(
     assert h % n_dev == 0, f"film height {h} not divisible by {n_dev} devices"
     rows_per = h // n_dev
 
-    def _device_render(film_state, sample_indices, pixel_xy, local_film):
+    def _device_render(scene, film_state, sample_indices, pixel_xy, local_film):
         if use_wavefront:
             return render_wave_wavefront(
                 scene, camera, local_film, sampler, film_state,
@@ -82,58 +102,45 @@ def make_sharded_wave_renderer(
 
     if mode == "tiles":
 
-        def wave_body(film_state: FilmState, sample_indices):
-            # Each device renders its row band into its (rows_per, W) shard.
-            band = jax.lax.axis_index(axis) * rows_per
-            ys, xs = jnp.meshgrid(
-                jnp.arange(rows_per, dtype=jnp.int32),
-                jnp.arange(w, dtype=jnp.int32),
-                indexing="ij",
-            )
-            # Global pixel coords for camera rays + sampler seeding...
-            pixel_global = jnp.stack(
-                [xs.reshape(-1), (ys + band).reshape(-1)], axis=-1
-            )
-            # ...but film scatter uses shard-local row indices.
-            local_film = LocalBandFilm(film, band)
+        def wave_body(scene, film_state: FilmState, sample_indices):
+            # Each device renders its row band into its (rows_per, W)
+            # shard: global pixel coords for camera rays + sampler
+            # seeding, shard-local rows for the film scatter.
+            pixel_global = _band_pixels(axis, rows_per, w)
+            local_film = LocalBandFilm(film, axis, rows_per)
             return _device_render(
-                film_state, sample_indices, pixel_global, local_film
+                scene, film_state, sample_indices, pixel_global, local_film
             )
 
-        return jax.jit(
+        sharded = jax.jit(
             jax.shard_map(
                 wave_body,
                 mesh=mesh,
-                in_specs=(
-                    FilmState(
-                        rgb_sum=P(axis), weight_sum=P(axis), rgb_splat=P(axis)
-                    ),
-                    P(),
-                ),
-                out_specs=FilmState(
-                    rgb_sum=P(axis), weight_sum=P(axis), rgb_splat=P(axis)
-                ),
+                in_specs=(P(), _band_spec(axis), P()),
+                out_specs=_band_spec(axis),
                 check_vma=False,
             )
         )
+        return lambda film_state, idx: sharded(scene, film_state, idx)
 
     if mode == "spp":
         from shimmer_tpu.render import full_image_pixels
 
         pixel_xy = full_image_pixels(film)
 
-        def wave_body(film_state: FilmState, sample_indices):
+        def wave_body(scene, film_state: FilmState, sample_indices):
             # sample_indices: (D, n_wave) sharded — each device gets a slice.
             my = sample_indices.reshape(-1)
-            fs = _device_render(film_state, my, pixel_xy, film)
-            # Cross-chip film reduction (the psum over ICI in BASELINE.json).
+            fs = _device_render(scene, film_state, my, pixel_xy, film)
+            # Cross-device film reduction.
             return jax.tree.map(lambda x: jax.lax.psum(x, axis), fs)
 
-        return jax.jit(
+        sharded = jax.jit(
             jax.shard_map(
                 wave_body,
                 mesh=mesh,
                 in_specs=(
+                    P(),
                     FilmState(rgb_sum=P(), weight_sum=P(), rgb_splat=P()),
                     P(axis),
                 ),
@@ -141,24 +148,62 @@ def make_sharded_wave_renderer(
                 check_vma=False,
             )
         )
+        return lambda film_state, idx: sharded(scene, film_state, idx)
 
     raise ValueError(f"unknown mode: {mode}")
 
 
-class LocalBandFilm:
-    """Film view whose scatter indices are shard-local rows."""
+def make_sharded_replay_renderer(
+    camera, film: RgbFilm, sampler, mesh: Mesh, max_depth: int = 5
+):
+    """Row-band-sharded path-replay wave (render.py's
+    make_replay_wavefront_renderer on each device's band).
 
-    def __init__(self, film: RgbFilm, band_row0):
+    Returns a jitted ``(scene, film_state, sample_indices) -> film_state``
+    over a film state made by :func:`init_sharded_film_state`; it is
+    differentiable w.r.t. ``scene``, and a loss summed over the sharded
+    film state reduces across devices by itself."""
+    axis = mesh.axis_names[0]
+    w, h = film.resolution
+    n_dev = mesh.shape[axis]
+    assert h % n_dev == 0, f"film height {h} not divisible by {n_dev} devices"
+    rows_per = h // n_dev
+
+    def body(scene, film_state, sample_indices):
+        replay = make_replay_wavefront_renderer(
+            scene, camera, LocalBandFilm(film, axis, rows_per), sampler,
+            max_depth=max_depth,
+        )
+        pixel_global = _band_pixels(axis, rows_per, w)
+        return replay(scene, film_state, sample_indices, pixel_global, None)
+
+    return jax.jit(
+        jax.shard_map(
+            body,
+            mesh=mesh,
+            in_specs=(P(), _band_spec(axis), P()),
+            out_specs=_band_spec(axis),
+            check_vma=False,
+        )
+    )
+
+
+class LocalBandFilm:
+    """Film view whose scatter indices are shard-local rows.  The band's
+    first row is read from the mesh axis where it is used, so the view
+    holds no traced value (the replay's custom VJP may close over it)."""
+
+    def __init__(self, film: RgbFilm, axis: str, rows_per: int):
         self._film = film
-        self._band = band_row0
+        self._axis = axis
+        self._rows_per = rows_per
 
     def __getattr__(self, name):
         return getattr(self._film, name)
 
     def local_xy(self, pixel_xy):
-        return jnp.stack(
-            [pixel_xy[..., 0], pixel_xy[..., 1] - self._band], axis=-1
-        )
+        band = jax.lax.axis_index(self._axis) * self._rows_per
+        return jnp.stack([pixel_xy[..., 0], pixel_xy[..., 1] - band], axis=-1)
 
     def add_samples(self, state, pixel_xy, l, swl, weight, unique=False):
         return self._film.add_samples(
@@ -167,13 +212,10 @@ class LocalBandFilm:
 
 
 def init_sharded_film_state(film: RgbFilm, mesh: Mesh) -> FilmState:
-    axis = mesh.axis_names[0]
-    state = film.init_state()
-    spec = FilmState(rgb_sum=P(axis), weight_sum=P(axis), rgb_splat=P(axis))
     return jax.tree.map(
         lambda x, s: jax.device_put(x, NamedSharding(mesh, s)),
-        state,
-        spec,
+        film.init_state(),
+        _band_spec(mesh.axis_names[0]),
     )
 
 
@@ -191,7 +233,7 @@ def render_sharded(
     integrator_options: dict | None = None,
     wavefront: bool | None = None,
 ):
-    """Multi-chip render loop; same contract as shimmer_tpu.render.render."""
+    """Multi-device render loop; same contract as shimmer_tpu.render.render."""
     mesh = mesh or make_tile_mesh()
     spp = spp if spp is not None else sampler.samples_per_pixel
     wave_fn = make_sharded_wave_renderer(

@@ -96,8 +96,7 @@ def _sobol_matrices_dim2() -> np.ndarray:
 
 
 # Column masks as PYTHON ints: indexing a closed-over device array in a
-# python loop emits per-element dynamic-slices that defeat fusion
-# (measured ~6 ms per 65k-lane chain vs microseconds with immediates).
+# python loop emits per-element dynamic-slices that defeat fusion.
 _SOBOL_COLS = [[int(c) for c in row] for row in _sobol_matrices_dim2()]
 
 
@@ -172,10 +171,8 @@ _PERMUTATIONS_NP = np.array(
     np.uint32,
 )
 # Each permutation packed 2 bits/digit so the whole row is one select:
-# TPU has no fast per-lane gather — a 24-entry table lookup as a
-# broadcast compare+select chain is ~200x cheaper than .at[] indexing
-# (the old _PERMUTATIONS[p, digit] gather cost ~6 ms/draw at 65k lanes
-# and dominated the entire wavefront body; r4 on-chip measurement).
+# a 24-entry table lookup as a broadcast compare+select chain fuses into
+# the surrounding elementwise code, where a per-lane gather would not.
 _PERM_PACKED = [
     int(sum(int(row[d]) << (2 * d) for d in range(4)))
     for row in _PERMUTATIONS_NP
@@ -239,8 +236,8 @@ class ZSobolSampler:
         m = morton[..., None]
         digit = (m >> shifts) & _U32(3)
         higher = m >> (shifts + _U32(2))
-        # p = hash % 24 without integer division (TPU emulates u32
-        # modulo at ~100 ops): fixed-point scale of the top 16 bits.
+        # p = hash % 24 without integer division: fixed-point scale of
+        # the top 16 bits.
         h = srng.hash_combine(higher, dim[..., None], _U32(self.seed))
         p = ((h >> _U32(16)) * _U32(24)) >> _U32(16)
         dig = _perm_digit(p, digit)                       # (..., D)

@@ -63,7 +63,7 @@ def scene_intersect(scene: Scene, ray_o, ray_d, t_max, want_any=False):
     want_any: per-lane bool — lanes flagged True terminate at their first
     accepted hit (only ``valid`` is meaningful for them).  This lets a
     path bounce trace its extension rays and its NEE shadow rays in ONE
-    traversal dispatch (the dominant sequential cost on TPU)."""
+    traversal dispatch."""
     si = None
     if scene.has_spheres:
         si = sphere_intersect(scene.spheres, ray_o, ray_d, t_max)

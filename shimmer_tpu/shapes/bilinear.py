@@ -6,7 +6,7 @@ quadratic ray intersection (intersect_blp, bilinear_patch.rs:144),
 corner-area-weighted sampling (SampleBilinear over the corner normal
 magnitudes) and solid-angle pdfs for NEE/MIS.
 
-Design differences from the reference (TPU-first, not a port):
+Design differences from the reference (batched device code, not a port):
 
 * SoA batch of all patches; intersection is a vectorized (N rays x B
   patches) test — patch counts in pbrt scenes are small (quad lights,

@@ -73,7 +73,8 @@ def _apply12(a12, p, w=1.0):
     vectors (w=0)."""
     m = a12.reshape(a12.shape[:-1] + (3, 4))
     return (
-        jnp.einsum("...ij,...j->...i", m[..., :3], p) + w * m[..., 3]
+        jnp.einsum("...ij,...j->...i", m[..., :3], p, precision=jax.lax.Precision.HIGHEST)
+        + w * m[..., 3]
     )
 
 
@@ -396,7 +397,7 @@ def instanced_intersect(data: InstancedTriangles, ray_o, ray_d, t_max,
         # normals map by the inverse transpose: n_w = A^-T n_o, i.e.
         # n_w[i] = sum_j inv[j, i] * n_o[j].
         m = inv.reshape(inv.shape[:-1] + (3, 4))[..., :3]
-        return jnp.einsum("...ji,...j->...i", m, ns)
+        return jnp.einsum("...ji,...j->...i", m, ns, precision=jax.lax.Precision.HIGHEST)
 
     return build_triangle_interaction(
         data.attr_rows, data.has_normals, ray_o, ray_d,

@@ -12,6 +12,7 @@ uniform-area ``sample`` and cone-based ``sample_with_context`` /
 
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 
@@ -102,7 +103,7 @@ def make_sphere_data(spheres: list[dict]) -> SphereData:
 
 def _apply_m(m, p, w):
     ph = jnp.concatenate([p, jnp.full_like(p[..., :1], w)], axis=-1)
-    out = jnp.einsum("...ij,...j->...i", m, ph)
+    out = jnp.einsum("...ij,...j->...i", m, ph, precision=jax.lax.Precision.HIGHEST)
     return out[..., :3]
 
 
@@ -200,7 +201,7 @@ def sphere_intersect(data: SphereData, ray_o, ray_d, t_max):
     n_obj = normalize(p_obj)
     # normal transform: inverse transpose of o2r = transpose of r2o
     n = normalize(
-        jnp.einsum("...ji,...j->...i", r2o[..., :3, :3], n_obj)
+        jnp.einsum("...ji,...j->...i", r2o[..., :3, :3], n_obj, precision=jax.lax.Precision.HIGHEST)
     )
     rev = gidx(data.reverse_orientation)
     n = jnp.where(rev[..., None], -n, n)
@@ -241,7 +242,9 @@ def sphere_sample(data: SphereData, idx, u):
     r2o = data.render_to_object[idx]
     p_obj = radius[..., None] * sample_uniform_sphere(u)
     p = _apply_m(o2r, p_obj, 1.0)
-    n = normalize(jnp.einsum("...ji,...j->...i", r2o[..., :3, :3], p_obj))
+    n = normalize(
+        jnp.einsum("...ji,...j->...i", r2o[..., :3, :3], p_obj, precision=jax.lax.Precision.HIGHEST)
+    )
     n = jnp.where(data.reverse_orientation[idx][..., None], -n, n)
     pdf = 1.0 / sphere_area(data)[idx]
     return p, n, pdf

@@ -9,18 +9,17 @@ watertight translate-permute-shear algorithm (triangle.rs:173-302 —
 algorithm only; the f64 edge-function fallback is omitted, f32 edge
 functions use difference_of_products compensation instead).
 
-Traversal performance model (measured on TPU v5e, round 2): one
-*sequential dependent* row gather costs 0.4-1.9 ms at 131k lanes — nearly
-independent of row width up to 128 f32 — so the design goal is the
-minimum number of sequential gather steps per ray query.  The 8-wide BVH
-(ops/bvh8.py) gives ~log8 levels; each step fetches ONE 512-byte row that
-is either 8 child boxes (slab-tested as an (N, 8) tile on the VPU) or 8
-inline triangles (intersected as an (N, 8) tile).  Traversal state is a
+Traversal: each step fetches ONE 512-byte row of the 8-wide BVH
+(ops/bvh8.py) that is either 8 child boxes (slab-tested as an (N, 8)
+tile) or 8 inline triangles (intersected as an (N, 8) tile), so a ray
+needs about log8 levels of dependent row fetches.  Traversal state is a
 per-lane int32 "group" = child_base*256 + pending-hit mask plus a short
 explicit stack; the reference's ordered stack walk (aggregate.rs:71-139)
 becomes pop-lowest-bit / push-remainder.  Closest-hit and any-hit
 (shadow) lanes share one traversal via a per-lane ``want_any`` flag so a
-path-tracing bounce costs a single traversal dispatch.
+path-tracing bounce costs a single traversal dispatch.  ``_traverse`` is
+the plain XLA form and the reference; on a GPU ``_traverse_raw`` runs
+the same algorithm as a kernel (ops/traverse_gpu.py).
 
 Integer topology fields are stored as exact small floats (< 2^24) — no bit
 casts, so NaN canonicalization or denormal flushing cannot corrupt the
@@ -29,13 +28,11 @@ tree (advisor r1).
 
 from __future__ import annotations
 
-import os
-
 import jax
 import jax.numpy as jnp
 import numpy as np
 
-from shimmer_tpu.ops.bvh8 import MAX_LEAF8, pack_bvh8, pack_tiles8
+from shimmer_tpu.ops.bvh8 import MAX_LEAF8, pack_bvh8
 from shimmer_tpu.ops.math import difference_of_products
 from shimmer_tpu.ops.sampling import (
     sample_spherical_triangle,
@@ -67,8 +64,7 @@ _A_REV = 17      # reverse_orientation flag (0/1)
 _A_ORIG = 18     # original (pre-BVH-sort) triangle index
 _A_P0 = 19       # 19:28 p0,p1,p2 render-space vertices — the fast
 #                  interaction path reads ONE packed row per hit instead
-#                  of an index gather + 3 vertex-pool gathers (per-lane
-#                  gathers are the dominant non-kernel trace cost on TPU)
+#                  of an index gather + 3 vertex-pool gathers
 _A_MI = 28       # MediumInterface inside id (-2 = undeclared, -1 = vacuum)
 _A_MO = 29       # MediumInterface outside id
 
@@ -91,16 +87,15 @@ class TriangleSceneData:
     tri_area: jnp.ndarray      # (T,)
     # Hot-path packed tables:
     rows8: jnp.ndarray       # (R, 128) f32 — see ops/bvh8.py layout
-    tiles8: jnp.ndarray      # (ceil(R/8), 8, 128) f32 — sublane-packed
-    #                          node tiles for the Pallas kernel fetch
-    meta: jnp.ndarray        # (R,) int32 leaf_count | child_base << 4
     attr_rows: jnp.ndarray   # (T, 32) f32, BVH order
     light_rows: jnp.ndarray  # (T, 16) f32, original order
     world_min: jnp.ndarray   # (3,)
     world_max: jnp.ndarray   # (3,)
     stack_depth: int = static_field(default=16)
-    # Traversal backend: "auto" = Pallas packet kernel on TPU when the
-    # row table fits VMEM, XLA bitstack otherwise; "pallas"/"xla" force.
+    # Traversal backend: "auto" = the GPU kernel (ops/traverse_gpu.py) on
+    # a GPU, the XLA reference ``_traverse`` elsewhere; "xla" forces the
+    # reference; "interpret" runs the kernel in Pallas interpret mode
+    # (tests only).
     traversal: str = static_field(default="auto")
     has_normals: bool = static_field(default=False)
     has_uv: bool = static_field(default=False)
@@ -234,8 +229,6 @@ def build_triangle_scene(
         orig_rev=jnp.asarray(rev),
         tri_area=jnp.asarray(area, jnp.float32),
         rows8=jnp.asarray(bvh8.rows),
-        tiles8=jnp.asarray(pack_tiles8(bvh8.rows, bvh8.meta)),
-        meta=jnp.asarray(bvh8.meta),
         attr_rows=jnp.asarray(attr),
         light_rows=jnp.asarray(light_rows),
         world_min=jnp.asarray(lo.min(axis=0)),
@@ -252,13 +245,12 @@ def build_triangle_scene(
 
 
 def _permute_to_max_z(v, kz):
-    """Cyclic-permute (..., 3) vectors so component ``kz`` lands in z.
+    """Cyclic-permute a 3-tuple of components so component ``kz`` lands
+    in z.
 
     kz in {0,1,2}; (kx, ky) = (kz+1, kz+2) mod 3.  Implemented as pure
-    lane-wise selects — per-lane ``take_along_axis`` gathers cost ~1000x
-    more than VPU selects on TPU (measured; this one change was worth
-    ~10x on whole-scene traversal)."""
-    vx, vy, vz = v[..., 0], v[..., 1], v[..., 2]
+    lane-wise selects rather than per-lane gathers."""
+    vx, vy, vz = v
     is0 = kz == 0
     is1 = kz == 1
     ox = jnp.where(is0, vy, jnp.where(is1, vz, vx))
@@ -270,14 +262,31 @@ def _permute_to_max_z(v, kz):
 def intersect_triangle(ray_o, ray_d, t_max, p0, p1, p2):
     """Watertight ray-triangle intersection (triangle.rs:173-302).
 
-    All args batched (...,).  Returns (hit, t, b0, b1, b2).
-    """
+    Points and directions are (..., 3), t_max (...,).  Returns
+    (hit, t, b0, b1, b2)."""
+
+    def xyz(v):
+        return v[..., 0], v[..., 1], v[..., 2]
+
+    return intersect_triangle_xyz(
+        xyz(ray_o), xyz(ray_d), t_max, xyz(p0), xyz(p1), xyz(p2)
+    )
+
+
+def intersect_triangle_xyz(ray_o, ray_d, t_max, p0, p1, p2):
+    """``intersect_triangle`` on component tuples ``(x, y, z)`` of
+    broadcastable arrays.  This form is shared by the XLA traversal and
+    the GPU traversal kernel, whose tensors cannot have a width-3 axis."""
     # Translate to ray origin.
-    p0t = p0 - ray_o
-    p1t = p1 - ray_o
-    p2t = p2 - ray_o
-    # Permute so |d_z| is the largest component.
-    kz = jnp.argmax(jnp.abs(ray_d), axis=-1)
+    p0t = tuple(p - o for p, o in zip(p0, ray_o))
+    p1t = tuple(p - o for p, o in zip(p1, ray_o))
+    p2t = tuple(p - o for p, o in zip(p2, ray_o))
+    # Permute so |d_z| is the largest component (first maximum on ties,
+    # as argmax).
+    ax, ay, az = (jnp.abs(c) for c in ray_d)
+    kz = jnp.where(
+        (ax >= ay) & (ax >= az), 0, jnp.where(ay >= az, 1, 2)
+    )
     dx, dy, dz = _permute_to_max_z(ray_d, kz)
     p0x, p0y, p0z = _permute_to_max_z(p0t, kz)
     p1x, p1y, p1z = _permute_to_max_z(p1t, kz)
@@ -337,9 +346,8 @@ def _popcount8(v):
     return (v + (v >> 4)) & 0x0F
 
 
-# Inner fori steps per outer while iteration: the while cond's any()
-# reduction is a device sync (~0.1 ms measured), so it is amortized over
-# a chunk of unconditional steps.
+# Inner fori steps per outer while iteration: the while predicate's
+# any() reduction is evaluated once per chunk of unconditional steps.
 TRAVERSE_CHUNK = 8
 
 
@@ -561,45 +569,29 @@ def _traverse(
     return t_best, tri_best, b0, b1, b2, verts
 
 
-def _use_pallas(tris: TriangleSceneData) -> bool:
-    """Static choice of traversal backend (resolved at trace time).
-
-    The packet kernel streams non-resident node tiles from HBM (see
-    ops/pallas/traverse.py), so there is no table-size ceiling anymore —
-    every TPU scene takes the fast path unless explicitly forced off."""
-    if tris.traversal == "xla":
-        return False
-    if tris.traversal == "pallas":
-        return True
-    return jax.default_backend() == "tpu"
+TRAVERSALS = ("auto", "xla", "interpret")
 
 
 def _traverse_raw(tris: TriangleSceneData, ray_o, ray_d, t_max, any_hit):
-    """Backend dispatch; both paths return only ``(t, tri)`` with
-    t = +inf on miss.  Barycentrics/vertices are re-derived by callers
-    that need them (one vertex gather + re-intersection) — keeping the
-    traversal contract minimal is what makes shadow-only queries and
-    the Pallas unsort cheap."""
-    if _use_pallas(tris):
-        from shimmer_tpu.ops.pallas.traverse import traverse_packets_raw
+    """Backend dispatch, resolved at trace time.  Both paths return only
+    ``(t, tri)`` with t = +inf on miss; barycentrics and vertices are
+    re-derived by callers that need them (one attribute-row gather and a
+    re-intersection), which keeps shadow-only queries cheap.
 
-        return traverse_packets_raw(
-            tris, ray_o, ray_d, t_max, any_hit=any_hit,
-            interpret=tris.traversal == "pallas"
-            and jax.default_backend() != "tpu",
-            # Morton/octant sorting: NET-NEGATIVE at the r4 config, but
-            # the r5 re-test at the production config (block 2^17,
-            # wave_spp 16; experiments/r5_compact_ab.py) measured a
-            # reproducible +0.9% (1.605 vs 1.591 Mrays/s, both ABAB
-            # passes identical) — the argsort also compacts dead lanes
-            # (~50% of dispatch lanes) to the tail as whole-dead
-            # packets.  Default ON since r5.
-            sort_rays=bool(int(os.environ.get("SHIMMER_SORT_RAYS", "1"))),
-            # O(N) live-first partition — measured NET-NEGATIVE at both
-            # the r4 config (wave 1.01 vs 1.13 off) and the r5 config
-            # (1.443 vs 1.591): the reorder gathers cost more than the
-            # emptied packets save.  Subsumed by sort_rays anyway.
-            compact_dead=bool(int(os.environ.get("SHIMMER_COMPACT", "0"))),
+    ``tris.traversal``: "auto" takes the GPU kernel on a GPU and the XLA
+    reference elsewhere; "xla" forces the reference; "interpret" runs the
+    kernel in Pallas interpret mode (tests only).  A kernel that fails to
+    compile fails the call: there is no silent fallback."""
+    if tris.traversal not in TRAVERSALS:
+        raise ValueError(f"unknown traversal {tris.traversal!r}")
+    interpret = tris.traversal == "interpret"
+    if interpret or (
+        tris.traversal == "auto" and jax.default_backend() == "gpu"
+    ):
+        from shimmer_tpu.ops.traverse_gpu import traverse_gpu_raw
+
+        return traverse_gpu_raw(
+            tris, ray_o, ray_d, t_max, any_hit=any_hit, interpret=interpret
         )
     return _traverse(tris, ray_o, ray_d, t_max, any_hit=any_hit, raw=True)
 

@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import dataclasses
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 
@@ -318,7 +319,10 @@ def _apply_mapping(table: TextureTable, tex_id, si):
     # Spherical / planar mappings (only traced if a texture uses them —
     # cheap to include unconditionally since it's pure vector math).
     m = table.world_to_tex[tex_id]
-    p_t = jnp.einsum("...ij,...j->...i", m[..., :3, :3], si.p) + m[..., :3, 3]
+    p_t = (
+        jnp.einsum("...ij,...j->...i", m[..., :3, :3], si.p, precision=jax.lax.Precision.HIGHEST)
+        + m[..., :3, 3]
+    )
     sph_theta = safe_acos(jnp.clip(p_t[..., 2] / jnp.maximum(
         jnp.linalg.norm(p_t, axis=-1), 1e-9), -1.0, 1.0))
     sph_phi = spherical_phi(p_t)
@@ -413,7 +417,7 @@ def _ewa_level(table, tex_id, level, u, v, dudx, dvdx, dudy, dvdy, n_taps=8):
 
     Fixed-tap version: samples along the major axis with Gaussian weights
     (the reference loops the ellipse's bounding box — data-dependent; a
-    fixed tap count along the major axis is the standard GPU/TPU variant).
+    fixed tap count along the major axis is the standard GPU variant).
     """
     major = jnp.stack([dudx, dvdx], axis=-1)
     minor = jnp.stack([dudy, dvdy], axis=-1)

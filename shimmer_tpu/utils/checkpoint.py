@@ -1,6 +1,6 @@
 """Per-wave render checkpoint/resume.
 
-SURVEY.md §5 names film+RNG checkpointing per wave as the TPU build's
+SURVEY.md §5 names film+RNG checkpointing per wave as this renderer's
 natural aux subsystem (the reference's wave structure is
 checkpoint-shaped but persists nothing, integrator.rs:310-319).  Here a
 checkpoint is exact: the film accumulators (FilmState) plus the wave

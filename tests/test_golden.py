@@ -14,6 +14,12 @@ import pathlib
 import numpy as np
 import pytest
 
+from shimmer_tpu.film.image import (
+    GOLDEN_MEAN_REL,
+    GOLDEN_P99_REL,
+    relative_drift,
+)
+
 SCENES_DIR = pathlib.Path(__file__).parent / "scenes"
 SCENES = ["diffuse_box", "conductor_env", "dielectric"]
 
@@ -52,9 +58,6 @@ def test_golden(name):
     img = render_scene(name)
     assert img.shape == golden.shape
     assert np.isfinite(img).all()
-    scale = max(float(np.abs(golden).mean()), 1e-6)
-    diff = np.abs(img - golden)
-    mean_rel = diff.mean() / scale
-    p99_rel = np.quantile(diff, 0.99) / scale
-    assert mean_rel < 0.01, f"{name}: mean drift {mean_rel:.4f}"
-    assert p99_rel < 0.05, f"{name}: p99 drift {p99_rel:.4f}"
+    mean_rel, p99_rel = relative_drift(img, golden)
+    assert mean_rel < GOLDEN_MEAN_REL, f"{name}: mean drift {mean_rel:.4f}"
+    assert p99_rel < GOLDEN_P99_REL, f"{name}: p99 drift {p99_rel:.4f}"

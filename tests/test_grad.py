@@ -293,7 +293,7 @@ class TestProductionScaleGradients:
     path-replay backprop) bounding activation memory per bounce."""
 
     @staticmethod
-    def _tri_scene():
+    def _tri_scene(res=64):
         from shimmer_tpu.shapes.mesh import TriangleMesh, quad_mesh
         from shimmer_tpu.shapes.triangle import build_triangle_scene
 
@@ -305,7 +305,6 @@ class TestProductionScaleGradients:
                 jnp.array([0.0, 1.0, 0.0]),
             )
         )
-        res = 64
         cam = PerspectiveCamera(ct, (res, res), fov=42.0)
         film = RgbFilm((res, res), BoxFilter(), PixelSensor(cs), cs)
         r2w = cam.camera_transform.render_from_world()

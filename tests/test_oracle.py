@@ -5,7 +5,7 @@ VERDICT round-1 item 6: the Rust reference cannot build here (no cargo,
 .spec tables absent), so the matched-seeds image gate is approximated by
 an *independent implementation* comparison: a dumb, trustworthy numpy
 megakernel (no BVH, no NEE/MIS, no spectral pipeline — pure cosine-sampled
-gray-world path tracing) must agree with the full spectral TPU renderer
+gray-world path tracing) must agree with the full spectral renderer
 on mean radiance within Monte-Carlo tolerance.
 
 Scene: two diffuse spheres (one offset, causing interreflection the
