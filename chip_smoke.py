@@ -30,6 +30,7 @@ run with a non-zero status.  The last line is
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import pathlib
@@ -69,6 +70,16 @@ class Smoke:
             flush=True,
         )
         return details
+
+
+@contextlib.contextmanager
+def step(label):
+    """A start and a done line around one step of a phase, so that a run
+    cut by its time limit shows which step it was in."""
+    print(f"  {label}: start", flush=True)
+    t0 = time.perf_counter()
+    yield
+    print(f"  {label}: done {time.perf_counter() - t0:.2f} s", flush=True)
 
 
 def _timed(fn, *args):
@@ -172,11 +183,17 @@ def phase_traversal(scene, cam, film):
 
 def phase_frame(scene, cam, film):
     """The frame through render() twice (the second must be bit-identical),
-    then its steady-state time: render()'s own wave loop over a wave
-    function that is already compiled (render() traces anew per call)."""
+    then its steady-state time with the kernel and with the XLA traversal:
+    render()'s own wave loop over a wave function that is already compiled
+    (render() traces anew per call)."""
     import jax.numpy as jnp
     import numpy as np
 
+    from shimmer_tpu.film.image import (
+        GOLDEN_MEAN_REL,
+        GOLDEN_P99_REL,
+        relative_drift,
+    )
     from shimmer_tpu.render import (
         DEFAULT_PIXEL_BLOCK,
         make_wavefront_renderer,
@@ -195,29 +212,51 @@ def phase_frame(scene, cam, film):
         )
         return np.asarray(img)
 
-    first, first_s = _timed(frame)
-    second, second_s = _timed(frame)
+    with step("render() first call"):
+        first, first_s = _timed(frame)
+    with step("render() second call"):
+        second, second_s = _timed(frame)
     assert np.isfinite(second).all(), "non-finite pixels"
     mean = float(second.mean())
     assert mean > 0, "black frame"
 
-    wave = make_wavefront_renderer(scene, cam, film, sampler, max_depth=MAX_DEPTH)
     blocks, valids = pixel_blocks(film, DEFAULT_PIXEL_BLOCK)
     idx = jnp.arange(SPP, dtype=jnp.uint32)
+    steady_s, compile_s, images = {}, {}, {}
+    for traversal in ("auto", "xla"):
+        tris = dataclasses.replace(scene.triangles, traversal=traversal)
+        wave = make_wavefront_renderer(
+            dataclasses.replace(scene, triangles=tris), cam, film, sampler,
+            max_depth=MAX_DEPTH,
+        )
 
-    def steady():
-        state = film.init_state()
-        for b in range(blocks.shape[0]):
-            state = wave(state, idx, blocks[b], valids[b])
-        return state
+        def steady():
+            state = film.init_state()
+            for b in range(blocks.shape[0]):
+                state = wave(state, idx, blocks[b], valids[b])
+            return state
 
-    _timed(steady)
-    _, run_s = _timed(steady)
-    return first_s - run_s, run_s, {
+        with step(f"frame, traversal={traversal!r}"):
+            _, first_wave_s = _timed(steady)
+            state, steady_s[traversal] = _timed(steady)
+        compile_s[traversal] = first_wave_s - steady_s[traversal]
+        images[traversal] = np.asarray(film.get_image(state))
+    # The two traversals may flip near-edge hits (FMA contraction): the
+    # frames are held to the golden tolerance, not to bit equality.
+    mean_rel, p99_rel = relative_drift(images["xla"], images["auto"])
+    assert mean_rel < GOLDEN_MEAN_REL and p99_rel < GOLDEN_P99_REL, (
+        mean_rel, p99_rel,
+    )
+    run_s = steady_s["auto"]
+    return compile_s["auto"], run_s, {
         "resolution": [w, h], "spp": SPP, "mean": mean,
         "pixel_samples_per_s": w * h * SPP / run_s,
         "bit_identical_rerun": bool((first == second).all()),
         "render_first_call_s": first_s, "render_second_call_s": second_s,
+        "frame_kernel_s": steady_s["auto"], "frame_xla_s": steady_s["xla"],
+        "frame_xla_compile_s": compile_s["xla"],
+        "xla_vs_kernel_mean_rel": mean_rel, "xla_vs_kernel_p99_rel": p99_rel,
+        "steady_equals_render": bool((images["auto"] == second).all()),
     }
 
 
@@ -322,33 +361,72 @@ def phase_replay(scene, cam, film):
 
 
 def phase_four_cards_frame(scene, cam, film, mesh):
+    """render_sharded() against the one-card render(), then the steady
+    frame time of each: its wave function, already compiled, called
+    again."""
+    import jax.numpy as jnp
     import numpy as np
 
     from shimmer_tpu.film.image import relative_drift
-    from shimmer_tpu.parallel.render import render_sharded
-    from shimmer_tpu.render import render
+    from shimmer_tpu.parallel.render import (
+        init_sharded_film_state,
+        make_sharded_wave_renderer,
+        render_sharded,
+    )
+    from shimmer_tpu.render import (
+        DEFAULT_PIXEL_BLOCK,
+        make_wavefront_renderer,
+        pixel_blocks,
+        render,
+    )
     from shimmer_tpu.samplers import ZSobolSampler
 
     w, h = film.resolution
     sampler = ZSobolSampler(SPP, (w, h))
     kw = dict(spp=SPP, max_depth=MAX_DEPTH, wave_spp=SPP)
-    one, one_s = _timed(lambda: np.asarray(render(scene, cam, film, sampler, **kw)[0]))
-    four, first_s = _timed(
-        lambda: np.asarray(render_sharded(scene, cam, film, sampler, mesh, **kw)[0])
-    )
-    four, run_s = _timed(
-        lambda: np.asarray(render_sharded(scene, cam, film, sampler, mesh, **kw)[0])
-    )
+    with step("one-card render()"):
+        one, one_s = _timed(
+            lambda: np.asarray(render(scene, cam, film, sampler, **kw)[0])
+        )
+    with step("render_sharded()"):
+        four, first_s = _timed(
+            lambda: np.asarray(
+                render_sharded(scene, cam, film, sampler, mesh, **kw)[0]
+            )
+        )
     mean_rel, p99_rel = relative_drift(four, one)
     details = {
         "devices": mesh.devices.size, "rows_per_device": h // mesh.devices.size,
-        "one_card_s": one_s, "four_cards_s": run_s,
+        "render_one_card_s": one_s, "render_sharded_s": first_s,
         "mean_rel": mean_rel, "p99_rel": p99_rel,
         "max_abs_diff": float(np.abs(four - one).max()),
         "bit_identical": bool((four == one).all()),
     }
     assert np.isfinite(four).all() and four.mean() > 0, details
     assert mean_rel < SHARD_IMAGE_MEAN_REL and p99_rel < SHARD_IMAGE_P99_REL, details
+
+    idx = jnp.arange(SPP, dtype=jnp.uint32)
+    wave1 = make_wavefront_renderer(scene, cam, film, sampler, max_depth=MAX_DEPTH)
+    blocks, valids = pixel_blocks(film, DEFAULT_PIXEL_BLOCK)
+
+    def one_card():
+        state = film.init_state()
+        for b in range(blocks.shape[0]):
+            state = wave1(state, idx, blocks[b], valids[b])
+        return state
+
+    wave4 = make_sharded_wave_renderer(
+        scene, cam, film, sampler, mesh, max_depth=MAX_DEPTH
+    )
+    for name, fn in (
+        ("one_card", one_card),
+        ("sharded", lambda: wave4(init_sharded_film_state(film, mesh), idx)),
+    ):
+        with step(f"steady frame, {name}"):
+            _timed(fn)
+            details[f"steady_{name}_s"] = _timed(fn)[1]
+    run_s = details["steady_sharded_s"]
+    details["speedup"] = details["steady_one_card_s"] / run_s
     return first_s - run_s, run_s, details
 
 
@@ -380,9 +458,12 @@ def phase_four_cards_grad(mesh):
         scene, lambda sc: single(sc, film.init_state(), idx, px, valid)
     )
     vg4 = jax.jit(jax.value_and_grad(loss4))
-    (v1, g1), _ = _timed(jax.jit(jax.value_and_grad(loss1)), theta0)
-    (v4, g4), first_s = _timed(vg4, theta0)
-    (v4, g4), run_s = _timed(vg4, theta0)
+    with step("one-card value-and-grad"):
+        (v1, g1), _ = _timed(jax.jit(jax.value_and_grad(loss1)), theta0)
+    with step("sharded value-and-grad, first call"):
+        (v4, g4), first_s = _timed(vg4, theta0)
+    with step("sharded value-and-grad, second call"):
+        (v4, g4), run_s = _timed(vg4, theta0)
     details = {"resolution": [w, h], "value_1": float(v1), "value_4": float(v4),
                "grad_1": float(g1), "grad_4": float(g4)}
     assert float(g1) != 0.0, details

@@ -31,12 +31,13 @@ from jax.experimental import pallas as pl
 from jax.experimental.pallas import triton as plgpu
 
 from shimmer_tpu.ops.bvh8 import MAX_LEAF8
+from shimmer_tpu.ops.intersect import intersect_triangle_xyz, popcount8
 
 # Rays per program and warps per program.  Registers are the scarce
 # resource: the two (BLOCK, D) stacks and the (BLOCK, 8) tile temporaries
-# must fit without spilling.  Chosen on an H100 (700 W) from BLOCK in
-# {32, 64, 128} x num_warps in {1, 2, 4}, end to end on the production
-# frame (PERF.md).
+# must fit without spilling.  Chosen on an H100 (700 W): raw traversal
+# over BLOCK in {32, 64, 128} x num_warps in {1, 2, 4}, then the
+# production frame end to end over the best four (PERF.md).
 BLOCK = 32
 NUM_WARPS = 4
 
@@ -52,11 +53,6 @@ def _stack_depth(tris) -> int:
 
 
 def _kernel(rays_ref, rows_ref, t_ref, tri_ref, *, depth):
-    from shimmer_tpu.shapes.triangle import (
-        _popcount8,
-        intersect_triangle_xyz,
-    )
-
     ox = rays_ref[_OX, :]
     oy = rays_ref[_OY, :]
     oz = rays_ref[_OZ, :]
@@ -107,7 +103,7 @@ def _kernel(rays_ref, rows_ref, t_ref, tri_ref, *, depth):
         # Lowest pending bit -> row index; one row gather per ray.
         mask = group & 255
         t_low = mask & -mask
-        row_idx = (group >> 8) + _popcount8(t_low - 1)
+        row_idx = (group >> 8) + popcount8(t_low - 1)
         group_rem = group - t_low
         row_idx = jnp.where(active, row_idx, 0)
         count = rows_ref[row_idx, 80].astype(jnp.int32)
@@ -202,45 +198,42 @@ def _kernel(rays_ref, rows_ref, t_ref, tri_ref, *, depth):
     tri_ref[...] = tri_best
 
 
-@functools.partial(
-    jax.jit, static_argnames=("depth", "block", "num_warps", "interpret")
-)
-def _traverse_call(rows, rays, *, depth, block, num_warps, interpret):
+@functools.partial(jax.jit, static_argnames=("depth", "interpret"))
+def _traverse_call(rows, rays, *, depth, interpret):
     n = rays.shape[1]
     return pl.pallas_call(
         functools.partial(_kernel, depth=depth),
-        grid=(n // block,),
+        grid=(n // BLOCK,),
         in_specs=[
-            pl.BlockSpec((8, block), lambda i: (0, i)),
+            pl.BlockSpec((8, BLOCK), lambda i: (0, i)),
             pl.BlockSpec(rows.shape, lambda i: (0, 0)),
         ],
         out_specs=[
-            pl.BlockSpec((block,), lambda i: (i,)),
-            pl.BlockSpec((block,), lambda i: (i,)),
+            pl.BlockSpec((BLOCK,), lambda i: (i,)),
+            pl.BlockSpec((BLOCK,), lambda i: (i,)),
         ],
         out_shape=[
             jax.ShapeDtypeStruct((n,), jnp.float32),
             jax.ShapeDtypeStruct((n,), jnp.int32),
         ],
         backend="triton",
-        compiler_params=plgpu.CompilerParams(num_warps=num_warps, num_stages=1),
+        compiler_params=plgpu.CompilerParams(num_warps=NUM_WARPS, num_stages=1),
         interpret=interpret,
         name="bvh8_traverse",
     )(rays, rows)
 
 
 def traverse_gpu_raw(
-    tris, ray_o, ray_d, t_max, any_hit=False, *, interpret=False,
-    block=BLOCK, num_warps=NUM_WARPS,
+    tris, ray_o, ray_d, t_max, any_hit=False, *, interpret=False
 ):
     """Closest-hit / any-hit traversal of ``tris.rows8``.
 
     ray_o, ray_d: (N, 3); t_max: scalar or (N,); any_hit: bool or (N,)
     per-lane flags.  Returns ``(t, tri)``, t = +inf where tri = -1.
-    N need not be a multiple of ``block``: padded lanes carry
+    N need not be a multiple of ``BLOCK``: padded lanes carry
     t_max = -inf and start finished."""
     n = ray_o.shape[0]
-    n_pad = -(-n // block) * block
+    n_pad = -(-n // BLOCK) * BLOCK
     rays = jnp.concatenate(
         [
             jnp.asarray(ray_o, jnp.float32).T,
@@ -260,7 +253,6 @@ def traverse_gpu_raw(
     # of the replay VJP) must not reach it.
     t, tri = _traverse_call(
         jax.lax.stop_gradient(tris.rows8), jax.lax.stop_gradient(rays),
-        depth=_stack_depth(tris), block=block,
-        num_warps=num_warps, interpret=interpret,
+        depth=_stack_depth(tris), interpret=interpret,
     )
     return t[:n], tri[:n]

@@ -38,7 +38,7 @@ def make_tile_mesh(devices=None, axis: str = "tiles") -> Mesh:
     return Mesh(np.asarray(devices), (axis,))
 
 
-def _band_pixels(axis: str, rows_per: int, w: int):
+def band_pixels(axis: str, rows_per: int, w: int):
     """Global pixel coords of this device's row band."""
     band = jax.lax.axis_index(axis) * rows_per
     ys, xs = jnp.meshgrid(
@@ -106,7 +106,7 @@ def make_sharded_wave_renderer(
             # Each device renders its row band into its (rows_per, W)
             # shard: global pixel coords for camera rays + sampler
             # seeding, shard-local rows for the film scatter.
-            pixel_global = _band_pixels(axis, rows_per, w)
+            pixel_global = band_pixels(axis, rows_per, w)
             local_film = LocalBandFilm(film, axis, rows_per)
             return _device_render(
                 scene, film_state, sample_indices, pixel_global, local_film
@@ -174,7 +174,7 @@ def make_sharded_replay_renderer(
             scene, camera, LocalBandFilm(film, axis, rows_per), sampler,
             max_depth=max_depth,
         )
-        pixel_global = _band_pixels(axis, rows_per, w)
+        pixel_global = band_pixels(axis, rows_per, w)
         return replay(scene, film_state, sample_indices, pixel_global, None)
 
     return jax.jit(

@@ -36,12 +36,11 @@ import jax
 import jax.numpy as jnp
 
 from shimmer_tpu.ops.bvh8 import MAX_LEAF8, build_bvh8, pack_bvh8
+from shimmer_tpu.ops.intersect import intersect_triangle, popcount8
 from shimmer_tpu.shapes.triangle import (
     _attr_for,
     _concat_meshes,
-    _popcount8,
     build_triangle_interaction,
-    intersect_triangle,
 )
 from shimmer_tpu.utils.pytree import pytree_dataclass, static_field
 
@@ -244,7 +243,7 @@ def _traverse_inst(
 
         mask = group & 255
         t_low = mask & -mask
-        k = _popcount8(t_low - 1)
+        k = popcount8(t_low - 1)
         row_idx = (group >> 8) + k
         group_rem = group - t_low
         row_idx = jnp.where(active, row_idx, 0)

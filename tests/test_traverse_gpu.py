@@ -10,7 +10,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from shimmer_tpu.ops.traverse_gpu import _stack_depth, traverse_gpu_raw
+from shimmer_tpu.ops.traverse_gpu import BLOCK, _stack_depth, traverse_gpu_raw
 from shimmer_tpu.shapes.triangle import (
     _traverse,
     _traverse_raw,
@@ -49,8 +49,8 @@ def scene_and_rays():
     return tris, o, d
 
 
-def _kernel(tris, o, d, t_max, any_hit=False, **kw):
-    t, tri = traverse_gpu_raw(tris, o, d, t_max, any_hit, interpret=True, **kw)
+def _kernel(tris, o, d, t_max, any_hit=False):
+    t, tri = traverse_gpu_raw(tris, o, d, t_max, any_hit, interpret=True)
     return np.asarray(t), np.asarray(tri)
 
 
@@ -72,17 +72,16 @@ def _brute(tris, o, d, t_max):
     return np.asarray(jnp.min(jnp.where(hit, t, jnp.inf), axis=1))
 
 
-@pytest.mark.parametrize("block,num_warps", [(32, 1), (64, 2), (128, 4)])
-def test_closest_hit_matches_reference_and_brute(
-    scene_and_rays, block, num_warps
-):
+@pytest.mark.parametrize("n", [BLOCK, 2 * BLOCK, 256])
+def test_closest_hit_matches_reference_and_brute(scene_and_rays, n):
     tris, o, d = scene_and_rays
-    t_max = jnp.full(o.shape[0], jnp.inf)
-    tk, trik = _kernel(tris, o, d, t_max, block=block, num_warps=num_warps)
+    o, d = o[:n], d[:n]
+    t_max = jnp.full(n, jnp.inf)
+    tk, trik = _kernel(tris, o, d, t_max)
     tx, trix = _reference(tris, o, d, t_max)
     tb = _brute(tris, o, d, t_max)
     hit = trik >= 0
-    assert hit.sum() > o.shape[0] // 4, "fixture rays should mostly hit"
+    assert hit.sum() > n // 4, "fixture rays should mostly hit"
     np.testing.assert_array_equal(trik, trix)
     np.testing.assert_array_equal(tk, tx)
     assert (hit == np.isfinite(tb)).all()
@@ -115,11 +114,11 @@ def test_t_max_clips_hits(scene_and_rays):
     np.testing.assert_array_equal(tri_k, tri_full)
 
 
-@pytest.mark.parametrize("n", [1, 77, 130])
+@pytest.mark.parametrize("n", [1, BLOCK - 1, BLOCK + 1, 77, 130])
 def test_ray_count_not_a_multiple_of_block(scene_and_rays, n):
     tris, o, d = scene_and_rays
     t_max = jnp.full(n, jnp.inf)
-    tk, trik = _kernel(tris, o[:n], d[:n], t_max, block=64)
+    tk, trik = _kernel(tris, o[:n], d[:n], t_max)
     tx, trix = _reference(tris, o[:n], d[:n], t_max)
     assert trik.shape == (n,) and tk.shape == (n,)
     np.testing.assert_array_equal(trik, trix)
